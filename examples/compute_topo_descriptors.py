@@ -1,11 +1,11 @@
 """
 Example batch pipeline: every descriptor family over a list of scales.
 
-The TPU-native counterpart of the reference example
+The counterpart of the reference example
 (reference scripts/compute_topo_descriptors.py:12-91) — same flow
 (ingest -> NaN fill -> per-family compute_* loops -> cropped NetCDF
 outputs), same scale list, plus the backends the reference lacks:
-pass ``--sharded`` to run over every visible chip or ``--tiled`` to
+pass ``--sharded`` to run over every visible GPU or ``--tiled`` to
 stream out-of-core.
 
 Run with a DEM file:    python examples/compute_topo_descriptors.py DEM.nc

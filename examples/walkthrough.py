@@ -3,13 +3,12 @@
 The runnable counterpart of the reference's README.ipynb (reference
 README.md:24-190): build a Basodino-like ~30 m DEM, run every descriptor
 family through the public API, and print the same style of per-op timing
-log the reference renders in its README. Pipe the output to a file to
-refresh examples/walkthrough_output.txt:
+log the reference renders in its README:
 
-    python examples/walkthrough.py | tee examples/walkthrough_output.txt
+    python examples/walkthrough.py
 
-Everything here runs on whatever jax.devices() offers — the real TPU when
-attached, CPU otherwise. See examples/compute_topo_descriptors.py for the
+Everything here runs on whatever jax.devices() offers — the GPU when one
+is attached, CPU otherwise. See examples/compute_topo_descriptors.py for the
 batch-production variant with --sharded / --tiled / --stream backends.
 """
 
@@ -37,7 +36,7 @@ def main() -> None:
     )
 
     outdir = Path(tempfile.mkdtemp(prefix="topo_walkthrough_"))
-    print(f"device: {jax.devices()[0]}")
+    print(f"device: {jax.devices()[0].device_kind}")
     print(f"outputs: {outdir}")
 
     # --- ingest (reference README.md:33-60) --------------------------------

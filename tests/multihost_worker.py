@@ -1,8 +1,8 @@
 """Worker for the spawned 2-process multi-host SPMD test (not a test file).
 
 Each process owns 4 virtual CPU devices of a shared (2, 4) mesh, wires up
-via explicit-args ``runtime.initialize`` (the path TPU pods auto-detect,
-reference has no analogue — SURVEY.md §2b N3), assembles the global DEM from
+via explicit-args ``runtime.initialize`` (what every process of a GPU
+cluster passes; the reference has no analogue — SURVEY.md §2b N3), assembles the global DEM from
 host-local blocks, runs a sharded descriptor, and checks its OWN shards
 against the single-chip op.
 """

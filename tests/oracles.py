@@ -60,13 +60,20 @@ def _gradient_oracle(dem, sigma, res_meters, sig_ratio=1):
     return [dx, dy, slope, aspect]
 
 
-def _valley_ridge_oracle(dem, size, mode, flat_list, sigma=None):
+def _valley_ridge_oracle(dem, size, mode, flat_list, sigma=None, stats=None,
+                         with_gap=False):
+    """``stats`` = (mean, std) standardizes a row band with the statistics
+    of the full (smoothed) field; ``with_gap`` also returns the margin of
+    the winning angle over the runner-up (near-ties are where a direction
+    may legitimately differ)."""
     if sigma:
         dem = ndimage.gaussian_filter(dem, sigma)
-    dem = (dem - dem.mean()) / dem.std()
+    mean, std = stats if stats is not None else (dem.mean(), dem.std())
+    dem = (dem - mean) / std
     n_y, n_x = dem.shape
     dem_b = np.broadcast_to(dem, (len(flat_list), n_y, n_x))
     index_norm = np.zeros((n_y, n_x), dtype=np.float32) - np.inf
+    second = np.zeros((n_y, n_x), dtype=np.float32) - np.inf
     index_dir = np.zeros((n_y, n_x), dtype=np.float32)
     base = kernels.ridge_kernels(size, flat_list) if mode == "ridge" else (
         kernels.valley_kernels(size, flat_list)
@@ -76,9 +83,22 @@ def _valley_ridge_oracle(dem, size, mode, flat_list, sigma=None):
         conv = signal.convolve(dem_b, krot, mode="same")
         conv = np.max(conv, axis=0)
         greater = conv > index_norm
+        second = np.where(greater, index_norm, np.maximum(second, conv))
         index_norm[greater] = conv[greater]
         index_dir[greater] = angle
-    return [np.clip(index_norm, 0, None), index_dir]
+    out = [np.clip(index_norm, 0, None), index_dir]
+    return out + [index_norm - second] if with_gap else out
+
+
+def _rows_oracle(fn, dem, r0, r1, margin, *args, **kwargs):
+    """Rows [r0, r1) of ``fn(dem, ...)`` computed on a row band extended by
+    ``margin`` rows each side: exact for stencils narrower than the margin
+    (the band's own edges sit outside the rows kept)."""
+    lo, hi = max(0, r0 - margin), min(dem.shape[0], r1 + margin)
+    out = fn(dem[lo:hi], *args, **kwargs)
+    if isinstance(out, list):
+        return [o[r0 - lo:r1 - lo] for o in out]
+    return out[r0 - lo:r1 - lo]
 
 
 def _sx_oracle(dem, offsets, distances, border, height):

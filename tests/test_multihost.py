@@ -1,10 +1,10 @@
 """Genuine multi-process SPMD: two spawned processes, one shared (2, 4) mesh.
 
 Exercises explicit-args ``runtime.initialize`` (coordinator/num_processes/
-process_id — the multi-host wiring a TPU pod auto-detects), cross-process
+process_id — the wiring every process of a GPU cluster passes), cross-process
 ``host_local_to_global`` ingest, and sharded descriptor programs whose halo
 ppermutes and global-stat pmeans cross the process boundary (Gloo transport
-on CPU; ICI/DCN on real pods). VERDICT r2 item 4.
+on CPU; NCCL between GPUs).
 """
 
 import os

@@ -2,7 +2,7 @@
 
 Each oracle re-states the reference's numerical recipe (topo.py) directly in
 scipy/numpy on float32 inputs — the same substrate the reference executes on —
-and the jit-compiled TPU ops must match within float32 tolerance. This is the
+and the jit-compiled device ops must match within float32 tolerance. This is the
 numerical-regression suite the reference never had (SURVEY.md §4).
 """
 
@@ -211,11 +211,11 @@ def test_sx_even_window_distance_zero_quirk(dem_tiny):
 
 
 def test_valley_ridge_fft_path_matches_direct(dem_tiny):
-    # large kernels switch to the in-scan FFT formulation; force it on a
-    # small bank and require agreement with the direct row-channel path
+    # the in-scan FFT formulation against the partial-DFT matmul engine
+    # on the same small bank
     flat_list = [0, 0.2]
     direct = jax.jit(
-        lambda x: ops.valley_ridge(x, 7, "valley", flat_list, method="direct")
+        lambda x: ops.valley_ridge(x, 7, "valley", flat_list, method="dftmm")
     )(dem_tiny)
     fft = jax.jit(
         lambda x: ops.valley_ridge(x, 7, "valley", flat_list, method="fft")
@@ -224,19 +224,6 @@ def test_valley_ridge_fft_path_matches_direct(dem_tiny):
         np.asarray(fft[0]), np.asarray(direct[0]), rtol=1e-4, atol=2e-3
     )
     assert (np.asarray(fft[1]) != np.asarray(direct[1])).mean() < 0.02
-
-
-def test_conv2d_bank_rowchan_matches_batch(dem_tiny, rng):
-    from topo_descriptors_tpu.ops.conv import conv2d_bank_rowchan
-
-    kernels_ = rng.standard_normal((4, 6, 9)).astype(np.float32)
-    same = np.asarray(
-        jax.jit(lambda x: ops.conv2d_same_batch(x, kernels_, method="direct"))(dem_tiny)
-    )
-    rowchan = np.asarray(
-        jax.jit(lambda x: conv2d_bank_rowchan(x, kernels_, "same"))(dem_tiny)
-    )
-    np.testing.assert_allclose(rowchan, same, rtol=1e-5, atol=1e-2)
 
 
 @pytest.mark.parametrize("size,excl", [(5, False), (9, True), (21, False), (67, True)])

@@ -348,7 +348,7 @@ def test_pipeline_sx_sweep_sharded_ragged(mesh, sops, tmp_path):
 
 
 def test_sharded_tpi_ragged_with_smoothing(mesh, sops):
-    # VERDICT r2 item 6: smth_factors=1 TPI on a (63, 97) grid over the 2x4
+    # smth_factors=1 TPI on a (63, 97) grid over the 2x4
     # mesh — the pre-smooth reflects at the true edge, the centring constant
     # and counts come from the true domain only
     from topo_descriptors_tpu.parallel.mesh import pad_to_mesh

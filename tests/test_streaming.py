@@ -94,7 +94,7 @@ def test_dem_window_reader_geotiff(tmp_path, dem_raster):
 def test_band_writer_roundtrip(tmp_path, dem_raster):
     path = tmp_path / "banded.nc"
     with RasterBandWriter(path, dem_raster.grid, "OUT", units="m",
-                          attrs={"src": "test"}, chunk_rows=16) as w:
+                          attrs={"src": "test"}) as w:
         for r0 in range(0, 61, 16):
             w.write_rows(r0, dem_raster.data[r0 : r0 + 16])
     back = read_raster(path)

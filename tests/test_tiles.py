@@ -77,8 +77,8 @@ def test_tiled_valley_ridge(dem_tiny, runner, sigma):
 
 def test_tiled_valley_ridge_streamed_branch(dem_tiny, runner, monkeypatch):
     """The bank>budget tiled branch (tiles.py routes bank=None -> the
-    streamed on-device-rotation path per band) — dead in CI until round 4
-    (VERDICT r3 item #4). Forcing a 1-byte budget makes size 7 take it."""
+    streamed on-device-rotation path per band). Forcing a 1-byte budget
+    makes size 7 take it."""
     from topo_descriptors_tpu.config import CFG
 
     ref = jax.jit(

@@ -2,7 +2,7 @@
 
 ``chunked_device_put`` is load-bearing for the streamed valley/ridge path
 (GB-scale prefiltered kernel stacks at the reference's 60-100 km scales):
-a wrong chunk size would silently hit the relay's >~64 MB throughput cliff.
+a wrong chunk size would silently break the per-copy size bound.
 """
 
 import numpy as np
@@ -45,7 +45,7 @@ def test_chunk_count_for_oversize_array(monkeypatch):
 
 
 def test_default_cliff_constant_and_rowsize_floor():
-    # the documented relay cliff: every individual put stays <= 48 MB
+    # the documented per-copy bound: every individual put stays <= 48 MB
     assert PUT_CHUNK_BYTES == 48 * 1024 * 1024
     # a single row larger than max_bytes still transfers (one row per chunk)
     arr = np.zeros((3, 64), np.float32)  # 256 B/row

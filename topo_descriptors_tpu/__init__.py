@@ -1,11 +1,10 @@
-"""topo_descriptors_tpu — a TPU-native terrain-descriptor engine.
+"""topo_descriptors_tpu — a terrain-descriptor engine for NVIDIA GPUs.
 
 A from-scratch JAX / XLA / Pallas framework with the full capability surface of
-MeteoSwiss/topo-descriptors (reference: /root/reference/topo_descriptors), built
-TPU-first:
+MeteoSwiss/topo-descriptors, built for the accelerator:
 
-* descriptor math runs as jit-compiled XLA programs (MXU convolutions, fused
-  elementwise chains) instead of scipy.ndimage loops on numpy arrays;
+* descriptor math runs as jit-compiled XLA programs (matmul-DFT convolutions,
+  fused elementwise chains) instead of scipy.ndimage loops on numpy arrays;
 * the Sx horizon scan is a static-offset shifted-max kernel instead of a
   per-pixel Numba loop (reference topo.py:928-953);
 * DEMs scale past one chip through 2-D spatial sharding over a

@@ -1,6 +1,6 @@
 """Command-line batch driver.
 
-The TPU-native equivalent of the reference's example script
+The GPU equivalent of the reference's example script
 (scripts/compute_topo_descriptors.py:12-91): ingest a DEM, fill NaNs, and
 run a battery of descriptors over a list of scales, writing one NetCDF per
 (descriptor, scale). Adds what the reference's script lacks: descriptor
@@ -35,7 +35,7 @@ ALL_DESCRIPTORS = ("dem", "tpi", "std", "gradient", "valley", "ridge", "sx")
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="topo_descriptors_tpu",
-        description="TPU-native multi-scale terrain descriptors",
+        description="Multi-scale terrain descriptors on the GPU (JAX)",
     )
     src = p.add_mutually_exclusive_group(required=True)
     src.add_argument("--dem", type=Path, help="input DEM NetCDF file")
@@ -211,6 +211,16 @@ def main(argv=None) -> int:
     logging.basicConfig(
         level=logging.DEBUG if args.verbose else logging.INFO,
         format="%(levelname)s:%(name)s: %(message)s",
+    )
+
+    import jax
+
+    from topo_descriptors_tpu.config import ensure_compilation_cache
+
+    ensure_compilation_cache()
+    dev = jax.devices()[0]
+    logger.info(
+        f"platform {dev.platform}: {len(jax.devices())} x {dev.device_kind}"
     )
 
     from topo_descriptors_tpu import pipeline

@@ -8,9 +8,10 @@ The reference loads two knobs from ``config/topo_descriptors.conf`` via
 * ``scale_std = 4`` — number of Gaussian standard deviations per unit scale,
   i.e. ``sigma = scale_pxl / 4`` (reference topo.py:49,573; helpers.py:131)
 
-We keep both knobs with identical defaults, add the TPU-specific settings the
-reference has no analogue for (mesh layout, tiling, dtype policy), and load
-overrides from a simple ``key: value`` conf file or environment variables.
+We keep both knobs with identical defaults, add the engine settings the
+reference has no analogue for (mesh layout, conv routing, memory budgets),
+and load overrides from a simple ``key: value`` conf file or environment
+variables.
 """
 
 from __future__ import annotations
@@ -27,37 +28,27 @@ class Config:
     min_elevation: float = -100.0
     scale_std: float = 4.0
 
-    # --- TPU-native knobs (no reference analogue) ---
+    # --- engine knobs (no reference analogue) ---
     # Preferred 2-D device mesh layout (gy, gx); None = auto square-ish.
     mesh_shape: Optional[Tuple[int, int]] = None
     # Compute dtype for descriptor math on device.
     compute_dtype: str = "float32"
     # Use FFT convolution when the kernel area exceeds this many taps
-    # (mirrors scipy.signal.convolve's method='auto' switch, but tuned for
-    # TPU: spatial convs with C_in=1 map terribly onto the MXU, so the
-    # crossover to FFT sits far lower than scipy's).
+    # (mirrors scipy.signal.convolve's method='auto' switch). Not yet
+    # re-measured on the GPU (ROADMAP S4).
     fft_conv_min_taps: int = 1024
     # Below this tap count, direct convs unroll into shifted fused
-    # multiply-adds on the VPU instead of conv_general_dilated.
+    # multiply-adds instead of conv_general_dilated.
     shift_acc_max_taps: int = 1024
     # 1-D correlations (separable Gaussian) switch from shifted FMAs to
-    # per-axis FFT above this tap count. Re-calibrated round 5 on v5e at
-    # the Basodino grid: FMA 1.82/2.21/2.91/3.38 ms vs FFT
-    # 2.91/2.30/2.32/3.04 ms at 49/73/97/135 taps — crossover between 73
-    # and 97 (the old 160 left ~25% on the table for 100-160-tap sigmas,
-    # e.g. the 2 km gradient pre-smooth).
+    # per-axis FFT above this tap count (ROADMAP S4: not yet re-measured on
+    # the GPU).
     fft_correlate1d_min_taps: int = 88
     # {0,1}-valued kernels (disk stencils) of at least this many taps route
     # through the prefix-sum (summed-area) path: ~size row adds + 2 x
     # (distinct run widths) slice adds per pixel, exact and far below both
     # the direct conv's O(size^2) FMAs and the FFT's transpose traffic.
     sat_conv_min_taps: int = 128
-    # (legacy, round <= 3) valley/ridge row-channel MXU conv: largest
-    # row-stack to keep in HBM before the FFT formulation. The round-4
-    # default is the partial-DFT matmul engine (ops/dft_conv.py); the
-    # row-channel and FFT paths remain reachable via method='direct'/'fft'
-    # for cross-checks but no automatic route consults this knob anymore.
-    rowchan_max_bytes: int = 1536 * 1024 * 1024
     # valley/ridge: largest precomputed rotated-kernel bank to bake into the
     # device program as one static constant. Beyond this (the reference's own
     # 20-100 km example scales reach 17-48 GB) the angle loop streams
@@ -77,11 +68,6 @@ class Config:
     # Reproduce the reference's int32-truncation quirk in the rolling std
     # (reference topo.py:300). Set False for a cleaner float32 variance.
     std_int32_parity: bool = True
-    # Persistent XLA/Mosaic compile cache. Some Sx fan configurations compile
-    # one Pallas kernel per azimuth (~0.5 s each cold); the persistent cache
-    # makes every later process pay ~nothing. Applied lazily the first time a
-    # descriptor op runs (see ensure_compilation_cache); set to "" to disable.
-    compilation_cache_dir: str = "~/.cache/topo_descriptors_tpu/jax"
 
     @classmethod
     def from_file(cls, path: str | os.PathLike) -> "Config":
@@ -109,38 +95,35 @@ class Config:
         return cfg
 
 
-_CACHE_CONFIGURED = False
+CHECKOUT = Path(__file__).resolve().parent.parent
 
 
-def ensure_compilation_cache() -> None:
-    """Point JAX's persistent compile cache at ``CFG.compilation_cache_dir``.
+def ensure_compilation_cache() -> Optional[str]:
+    """Place JAX's persistent compile cache; returns its directory, or
+    None when there is none.
 
-    Idempotent and cheap after the first call. Called by the descriptor ops
-    that are compile-heavy (per-azimuth Sx Pallas kernels, the valley/ridge
-    angle programs) so that a production user's *first* run already writes
-    the cache and every later process starts warm. An explicit
-    ``JAX_COMPILATION_CACHE_DIR`` env var wins; ``compilation_cache_dir: ""``
-    in the conf disables."""
-    global _CACHE_CONFIGURED
-    if _CACHE_CONFIGURED:
-        return
-    _CACHE_CONFIGURED = True
-    if os.environ.get("JAX_COMPILATION_CACHE_DIR"):
-        return  # user already chose a cache location
-    path = CFG.compilation_cache_dir
-    if not path:
-        return
-    path = os.path.expanduser(path)
-    try:
-        import jax
+    Called by the entry functions (the pipeline and streaming drivers,
+    ``cli.main``, chip_smoke.py, bench.py) before anything compiles, never
+    at import. When ``JAX_COMPILATION_CACHE_DIR`` is set, JAX reads it
+    itself and nothing is set here; a directory the caller already set
+    with ``jax.config.update`` is left as it is. Otherwise, when the
+    package sits in its source checkout, the cache goes to
+    ``<checkout>/.jax_cache``: a fixed path, so every later process finds
+    what an earlier one compiled. An installed package sets nothing.
+    """
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
+    import jax
 
-        Path(path).mkdir(parents=True, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", path)
-        # cache even fast compiles: the per-azimuth Sx kernels are ~0.5 s
-        # each but there can be dozens per fan
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.1)
-    except Exception:  # pragma: no cover - cache is best-effort
-        pass
+    current = jax.config.jax_compilation_cache_dir
+    if current:
+        return current
+    if not (CHECKOUT / "pyproject.toml").is_file():
+        return None
+    path = str(CHECKOUT / ".jax_cache")
+    jax.config.update("jax_compilation_cache_dir", path)
+    return path
 
 
 def _load_default() -> Config:

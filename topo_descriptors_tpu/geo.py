@@ -11,7 +11,7 @@ Replaces the reference's dependency stack for coordinate handling:
   (reference helpers.py:114-134) -> same-named functions, same semantics.
 
 All of this is grid *metadata* computation: it stays on the host; only raw
-DEM blocks ever move to TPU.
+DEM blocks ever move to the device.
 """
 
 from __future__ import annotations

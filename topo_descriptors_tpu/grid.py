@@ -3,8 +3,8 @@
 The reference leans on ``xarray.Dataset`` for the DEM container: a single 2-D
 variable with dims ``('y', 'x')``, coordinate arrays, and a ``crs`` attribute
 holding an EPSG code (reference helpers.py:171-188 ``check_dem``,
-helpers.py:191-196 ``get_da``). xarray is a host-side metadata wrapper; the
-TPU framework replaces it with a light, dependency-free :class:`RasterGrid`
+helpers.py:191-196 ``get_da``). xarray is a host-side metadata wrapper; this
+framework replaces it with a light, dependency-free :class:`RasterGrid`
 (coords + CRS + cached per-pixel metric resolution) and :class:`Raster`
 (grid + one named 2-D field). Device code only ever sees the raw array;
 the grid rides along host-side.

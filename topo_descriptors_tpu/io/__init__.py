@@ -1,9 +1,8 @@
-"""Geo I/O: NetCDF-compatible read/write and synthetic DEM generation.
+"""Geo I/O: NetCDF read/write, GeoTIFF read/write and synthetic DEMs.
 
 The reference does I/O through xarray + netCDF4 (helpers.py:17-65). Neither
-library is available here, so this package speaks the NetCDF4/HDF5 format
-directly through h5py using HDF5 dimension scales — files it writes are
-readable by netCDF4/xarray installations and vice versa.
+library is needed here: NetCDF-3 files are written directly and read through
+scipy, and NetCDF-4/HDF5 inputs are read through h5py when it is installed.
 """
 
 from topo_descriptors_tpu.io.netcdf import (

@@ -3,7 +3,7 @@
 Every descriptor op consumes small, deterministic weight arrays (disk masks,
 Gaussian taps, Sobel stencils, rotated valley/ridge banks, Sx ray geometry).
 These are computed host-side in numpy — they are grid metadata, a few KB at
-most — and shipped to the TPU as compile-time constants, so XLA folds them
+most — and shipped to the device as compile-time constants, so XLA folds them
 straight into the convolution lowering.
 """
 

@@ -4,7 +4,7 @@ The reference smooths with ``scipy.ndimage.gaussian_filter`` everywhere
 (topo.py:80,173,298,427,631,634-635). That filter is a separable correlation
 with truncated sampled-Gaussian taps (truncate=4.0) and 'reflect' boundary.
 We generate identical taps host-side; the separable convolution itself runs
-on TPU (ops/conv.py).
+on the device (ops/conv.py).
 """
 
 from __future__ import annotations

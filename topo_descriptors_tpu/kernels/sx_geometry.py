@@ -6,7 +6,7 @@ the azimuth arc, and vectorized Bresenham lines from each endpoint to the
 centre. We reproduce those semantics (they are golden-tested by the
 reference's own unit vectors, test/test_topo.py:6-67) and add
 :func:`sx_offsets`, which collapses the line pixels into a static
-``(K, 3)`` table of (dy, dx, 1/distance) — the form the TPU kernel consumes
+``(K, 3)`` table of (dy, dx, 1/distance) — the form the device scan consumes
 as a shifted-max reduction instead of the reference's per-pixel Numba loop
 (topo.py:928-953).
 """
@@ -95,7 +95,7 @@ def sx_offsets(
     azimuth_steps: int = 15,
     radius_min: float = 0.0,
 ) -> Tuple[np.ndarray, np.ndarray, int]:
-    """Static offset table for the TPU Sx kernel.
+    """Static offset table for the device Sx scan.
 
     Reproduces the host-side geometry of reference sx() (topo.py:828-853):
     azimuth fan, distance window with radius_min masked to NaN, ray endpoints
@@ -146,7 +146,7 @@ def sx_dedupe(
     lookup at that pixel, topo.py:861-878), duplicates therefore carry
     identical candidate values, and the nanmax over candidates
     (topo.py:951) is idempotent. Sorted lexicographically for deterministic
-    tables -> stable jit/Mosaic cache keys.
+    tables -> stable jit cache keys.
     """
     offs = np.asarray(offsets)
     dists = np.asarray(distances)

@@ -7,7 +7,7 @@ negated; per angle the 3-D stack is rotated with ``ndimage.rotate(order=2,
 reshape=True, cval=-9999)``, masked, re-standardized over valid pixels and
 zero-filled outside.
 
-TPU restructure: the reference rotates kernels *inside* its 180-iteration
+Restructure: the reference rotates kernels *inside* its 180-iteration
 angle loop (topo.py:441-443). Here the full 180-angle bank is precomputed
 host-side once (it is tiny — 180 x n_flats x k x k floats) so the device-side
 op is a single batched convolution with a fused running max, with no host

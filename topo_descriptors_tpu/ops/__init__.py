@@ -1,7 +1,7 @@
 """Descriptor ops: pure, jit-compiled array -> array transforms.
 
 Each op mirrors one numerical core of the reference (topo.py) with identical
-semantics but a TPU-native execution plan. Ops never touch metadata or I/O —
+semantics but a data-parallel execution plan for the accelerator. Ops never touch metadata or I/O —
 that lives in grid.py / pipeline.py — so every function here can be wrapped
 in ``jax.jit``, ``shard_map``, or ``vmap`` unchanged.
 """

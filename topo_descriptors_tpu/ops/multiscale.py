@@ -9,15 +9,13 @@ Here the whole batch is one XLA program:
 * the three moment fields (z-c, t-c, (t-c)^2) are built **once** and shared
   by every scale;
 * each scale runs one prefix-sum disk convolution over the stacked fields
-  (``conv2d_same_multi`` — the block-resident Pallas kernel on TPU), whose
-  cost scales with the disk *diameter*, not its area;
+  (``conv2d_same_multi``), whose cost scales with the disk *diameter*, not its area;
 * TPI costs nothing beyond STD: the centre-zeroed disk conv is the full
   disk conv minus the centre value (conv(z, disk - delta) = conv(z, disk)
   - z), so TPI is an elementwise epilogue on STD's intermediates.
 
 An earlier formulation shared batched rFFTs across scales; the prefix-sum
-engine beats it ~2.7x at Basodino size (18.2 -> 6.8 ms for a 5-scale
-TPI+STD batch on v5e), so the FFT sharing was retired.
+engine replaced it.
 """
 
 from __future__ import annotations

@@ -1,15 +1,11 @@
-"""Pallas TPU kernels — the framework's native tier.
+"""Hand-written Pallas kernels for the GPU.
 
 The reference's closest analogue to native code is its Numba-JIT Sx loop
-(topo.py:928-953) and scipy's C internals (SURVEY.md §2). Here the hot
-paths that XLA cannot schedule optimally get hand-written Mosaic kernels:
+(topo.py:928-953). Here a hot path gets a kernel only where it beats what
+XLA compiles from the plain version on the card:
 
-* :mod:`sx_block` — the Sx horizon scan as a block-resident shifted-max
-  kernel: each output tile's (block + ray-halo) window is DMA'd to VMEM
-  once and all K ray offsets reduce from on-chip memory, cutting HBM
-  traffic by ~K vs the streaming XLA scan on grids larger than VMEM.
+* :mod:`sx_gpu` — the Sx horizon scan through Pallas's Triton route: one
+  program per (azimuth, output tile) loops over its ray table, serving the
+  shifted loads from L1/L2 instead of streaming the field from device
+  memory once per ray.
 """
-
-from topo_descriptors_tpu.ops.pallas.sx_block import sx_pallas
-
-__all__ = ["sx_pallas"]

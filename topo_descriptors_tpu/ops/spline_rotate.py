@@ -4,7 +4,7 @@ The reference rotates the valley/ridge kernel stack host-side with
 ``scipy.ndimage.rotate(order=2, reshape=True, mode='constant', cval=-9999)``
 inside its 180-iteration angle loop (topo.py:441-443, 521-531). At its own
 example scales (20-100 km at 30 m resolution) each rotated stack is hundreds
-of MB, so a TPU pipeline that rotates host-side either bakes a 17-48 GB bank
+of MB, so a device pipeline that rotates host-side either bakes a 17-48 GB bank
 into the program or ships ~48 GB of kernels over the wire per descriptor.
 This module moves the rotation itself onto the device: the *base* kernel is
 spline-prefiltered once, and each angle is a cheap gather-interpolation that
@@ -38,6 +38,8 @@ from typing import Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
+
+from topo_descriptors_tpu.ops.dft_conv import dot_precision
 
 _POLE = float(np.sqrt(8.0) - 3.0)
 _GAIN = float((1.0 - _POLE) * (1.0 - 1.0 / _POLE))
@@ -213,7 +215,7 @@ def rotate_std_canvas(
     return anom * jax.lax.rsqrt(var)
 
 
-# --- gather-table rotation + quadrant symmetry (round-4 fast path) ----------
+# --- gather-table rotation + quadrant symmetry -------------------------------
 
 
 def build_rotation_table(filtered: jax.Array) -> jax.Array:
@@ -221,10 +223,9 @@ def build_rotation_table(filtered: jax.Array) -> jax.Array:
     table of shape ``((n+2)^2, F*9)``.
 
     :func:`rotate_std_canvas` costs 9 XLA gathers of 3-element slices per
-    canvas — measured 49.5 ms per (3, 943, 943)-from-667^2 rotation on v5e,
-    the whole-descriptor bottleneck at 20-100 km scales. XLA gather cost is
-    dominated by *index count*, not bytes: one gather pulling a contiguous
-    27-float lane slice per index runs the same rotation in 12.4 ms. Rows
+    canvas. Gather cost is dominated by *index count*, not bytes, so one
+    gather pulling a contiguous 27-float slice per index does the same
+    rotation with a ninth of the indices. Rows
     of the table hold the full 3x3 interpolation footprint of every flat at
     one (ystart, xstart) base position; the base grid is mirror-padded by 1
     so the footprint never needs per-tap index reflection (the clamp in
@@ -253,7 +254,7 @@ def rotate_std_canvas_table(
     """:func:`rotate_std_canvas` on the packed gather table — numerically
     the same construction (identical footprint indices, weights and masked
     re-standardization; float32 summation order differs only in the tap
-    accumulation), ~4x faster on v5e at large canvases."""
+    accumulation), with a ninth of the gather indices."""
     m = n + 2
     n_flats = table.shape[1] // 9
     ky_max, kx_max = canvas_shape
@@ -288,7 +289,7 @@ def rotate_std_canvas_table(
     g = jnp.take(table, idx, axis=0)  # (P, F*9)
     g = g.reshape(ky_max, kx_max, n_flats, 3, 3)
     w = wy[:, None] * wx[None, :]  # (3, 3, KY, KX)
-    val = jnp.einsum("abyx,yxfab->fyx", w, g)
+    val = jnp.einsum("abyx,yxfab->fyx", w, g, precision=dot_precision())
 
     m_in = inside[None]
     cnt = jnp.sum(inside.astype(table.dtype))
@@ -343,7 +344,7 @@ def quadrant_schedule(n_angles: int = 180):
 
     The decomposition is only defined on the reference's angle domain
     0..179 deg (topo.py:441); angles >= 181 would map to negative base
-    angles outside [0, 45] and silently produce wrong canvases (ADVICE r4),
+    angles outside [0, 45] and silently produce wrong canvases,
     so they are rejected.
     """
     if not 1 <= n_angles <= 180:

@@ -33,7 +33,7 @@ def std(
     squaring (topo.py:300); ``int32_parity`` reproduces that quirk (default
     from CFG.std_int32_parity; set False for the clean float variance).
 
-    TPU formulation: the naive sum/sum-of-squares difference cancels
+    Formulation: the naive sum/sum-of-squares difference cancels
     catastrophically in float32 (scipy hides it by accumulating the squared
     field in float64). Instead, all three moment fields are *mean-centred*
     before a single batched convolution, and the exact boundary tap-count

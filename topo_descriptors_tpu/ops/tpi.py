@@ -30,7 +30,7 @@ def tpi(
     zeroed centre, optional Gaussian pre-smooth, ``signal.convolve(mode=
     'same')`` (zero boundary) and ``dem - conv/sum(kernel)``.
 
-    TPU formulation: the convolution runs on the *mean-centred* field, with
+    Formulation: the convolution runs on the *mean-centred* field, with
     the exact boundary tap-count plane (host-precomputed integral image)
     restoring the offset. Mathematically identical, but float32 device
     arithmetic keeps full precision where the naive form loses ~5 digits to

@@ -16,11 +16,7 @@ from topo_descriptors_tpu.kernels.valley import (
     rotated_kernel_bank,
     valley_kernels,
 )
-from topo_descriptors_tpu.ops.conv import (
-    _fft_shape,
-    conv2d_bank_rowchan,
-    gaussian_filter,
-)
+from topo_descriptors_tpu.ops.conv import _fft_shape, gaussian_filter
 from topo_descriptors_tpu.ops.dft_conv import (
     DftConvPlan,
     conv_bank_mats,
@@ -167,12 +163,10 @@ _BANK_DEV_CACHE: dict = {}
 
 def _valley_ridge_bank_mm(dem, bank, angle_chunk, cache_key=None,
                           bank_shape=None, builder=None):
-    """Precomputed-bank valley/ridge via partial-DFT matmuls — the fast
-    path whenever the scipy-exact host bank fits the memory budget.
-    Measured v5e, Basodino 2 km (size 67, 540 kernels): 0.16 s per call
-    warm vs 2.62 s for the row-channel MXU scan (~85% of the matmul
-    roofline; the scipy rotations and the bank upload amortize via the
-    device cache below).
+    """Precomputed-bank valley/ridge via partial-DFT matmuls — the path
+    taken whenever the scipy-exact host bank fits the memory budget (the
+    scipy rotations and the bank upload amortize via the device cache
+    below).
 
     ``cache_key`` (set when the caller built the bank from its canonical
     (size, mode, flat_list) signature) keeps the folded, chunked bank
@@ -246,8 +240,7 @@ def _streamed_scan_cached_fn(n, kmax, h, w, n_flats, conv: str,
     builds the four quadrant variants (cheap lattice flips) and convolves.
 
     Why this exists: the ~46 rotation gathers are the streamed path's
-    non-conv cost (XLA gathers run at ~0.07 G rows/s — index-count-bound),
-    and they recompute an input-independent product. Production call sites
+    non-conv cost, and they recompute an input-independent product. Production call sites
     repeat the same (size, mode, flats) signature — the banded out-of-core
     driver (parallel/tiles.py) calls the streamed op once per band, and
     multi-tile services per tile — so the stack is rotated once and cached
@@ -337,8 +330,8 @@ def _streamed_scan_fn(n, kmax, h, w, n_flats, conv: str, q_batch: int = 1):
     ops/conv.py:612-618.
 
     ``q_batch`` packs that many quadrant angles into each scan step
-    (VERDICT r4 task 7): the per-step conv batch grows from ``4*F`` to
-    ``q_batch*4*F`` kernels — deeper MXU contractions, fewer scan-step
+    : the per-step conv batch grows from ``4*F`` to
+    ``q_batch*4*F`` kernels — deeper contractions, fewer scan-step
     fusion boundaries — and the rotation gathers of the batch issue
     together. The caller pads the schedule to a multiple of ``q_batch``
     with invalid slots (``slot_valid=0`` everywhere, masked to ``-inf``
@@ -462,7 +455,7 @@ def valley_ridge_streamed(
       the base kernels' flip symmetry makes this bit-faithful to scipy);
     * the flat-axis combine is folded into the kernel canvases before
       convolving (linearity), so each angle costs F convolutions + a max;
-    * convolutions run as partial-DFT MXU matmuls
+    * convolutions run as partial-DFT matmuls
       (:mod:`~topo_descriptors_tpu.ops.dft_conv`) or hoisted-field XLA FFT,
       whichever the calibrated cost model prefers at this size
       (``conv_method='auto'``; the FFT side wins only at ~100 km where the
@@ -470,9 +463,7 @@ def valley_ridge_streamed(
 
     The running max/argmax uses the min-angle-on-ties rule, which equals
     the reference's ascending strictly-greater update (topo.py:445) for
-    any processing order. Peak memory is O(one angle) in the kernel extent:
-    ~2.6 s -> 0.75 s at 20 km on v5e against the round-3 implementation's
-    10.2 s, with identical routing and parity contracts.
+    any processing order. Peak memory is O(one angle) in the kernel extent.
     """
     if mode not in ("valley", "ridge"):
         raise ValueError(f"Unknown mode {mode!r}")
@@ -590,7 +581,7 @@ def valley_ridge(
     convolution, max over flat variants and a running strictly-greater
     max/argmax across angles (ties keep the earliest angle).
 
-    TPU restructure: the reference rotates kernels and convolves inside a
+    Restructure: the reference rotates kernels and convolves inside a
     Python loop per angle (180 host round-trips). Here the angle loop is a
     device-side ``lax.scan``; the kernel bank is either precomputed
     host-side with scipy-exact rotation (banks within
@@ -599,9 +590,8 @@ def valley_ridge(
 
     * ``'auto'`` — streamed when the bank exceeds the budget, else
       ``'dftmm'``;
-    * ``'dftmm'`` — pre-folded bank convolved by partial-DFT MXU matmuls
-      (ops/dft_conv.py), ~9x the row-channel scan at 2 km on v5e;
-    * ``'direct'`` — row-channel MXU conv scan (conv2d_bank_rowchan);
+    * ``'dftmm'`` — pre-folded bank convolved by partial-DFT matmuls
+      (ops/dft_conv.py);
     * ``'fft'`` — hoisted-field XLA-FFT scan;
     * ``'stream'`` — force the streamed on-device-rotation path.
     """
@@ -632,38 +622,31 @@ def valley_ridge(
             )
         return _valley_ridge_bank_mm(dem, bank, angle_chunk)
 
+    if method != "fft":
+        raise ValueError(f"unknown valley/ridge method {method!r}")
     if bank is None:
         bank = prepare_valley_bank(size, mode, flat_list)
     a_angles, n_flats, ky, kx = bank.shape
-
+    h, w = dem.shape
+    fh = _fft_shape(h + ky - 1)
+    fw = _fft_shape(w + kx - 1)
+    # bound the (chunk*F, fh, fw/2+1) complex transients (and cuFFT's work
+    # area) by the chunk budget, as the matmul path does
+    per_angle = fh * (fw // 2 + 1) * 8 * n_flats
+    angle_chunk = max(1, min(angle_chunk, CFG.valley_chunk_bytes // per_angle))
     while a_angles % angle_chunk:
         angle_chunk -= 1
     n_chunks = a_angles // angle_chunk
 
-    h, w = dem.shape
-    if method == "fft":
-        fh = _fft_shape(h + ky - 1)
-        fw = _fft_shape(w + kx - 1)
-        f_dem = jnp.fft.rfft2(dem, s=(fh, fw))
-        sh, sw = (ky - 1) // 2, (kx - 1) // 2
+    f_dem = jnp.fft.rfft2(dem, s=(fh, fw))
+    sh, sw = (ky - 1) // 2, (kx - 1) // 2
 
-        def conv_chunk(kernels):  # (chunk*F, ky, kx) -> (chunk*F, H, W)
-            fk = jnp.fft.rfft2(kernels, s=(fh, fw))
-            full = jnp.fft.irfft2(f_dem[None] * fk, s=(fh, fw))
-            return jax.lax.slice(
-                full, (0, sh, sw), (kernels.shape[0], sh + h, sw + w)
-            ).astype(dem.dtype)
-
-    else:
-
-        def conv_chunk(kernels):
-            # bf16x3 (HIGH) keeps ~2^-21 relative error on the standardized
-            # field — far inside the descriptor's tolerance — at half the
-            # MXU passes of HIGHEST (bf16x6)
-            return conv2d_bank_rowchan(
-                dem, kernels, padding="same",
-                precision=jax.lax.Precision.HIGH,
-            )
+    def conv_chunk(kernels):  # (chunk*F, ky, kx) -> (chunk*F, H, W)
+        fk = jnp.fft.rfft2(kernels, s=(fh, fw))
+        full = jnp.fft.irfft2(f_dem[None] * fk, s=(fh, fw))
+        return jax.lax.slice(
+            full, (0, sh, sw), (kernels.shape[0], sh + h, sw + w)
+        ).astype(dem.dtype)
 
     bank_chunks = jnp.asarray(
         bank.reshape(n_chunks, angle_chunk * n_flats, ky, kx), dtype=dem.dtype

@@ -3,10 +3,10 @@ mesh with halo-exchange collectives.
 
 The reference's only scaling stories are a Numba shared-memory loop
 (topo.py:928) and an optional dask ``map_overlap`` tile path inside tpi
-(topo.py:177-178). This package is their TPU-native replacement (SURVEY.md
+(topo.py:177-178). This package is their multi-device replacement (SURVEY.md
 §2b N1-N3): DEM blocks sharded over a ``Mesh(('gy','gx'))``, descriptor ops
 run under ``shard_map`` with per-op halo widths exchanged via ``ppermute``
-neighbour collectives riding ICI, and global statistics (valley/ridge
+neighbour collectives over NVLink, and global statistics (valley/ridge
 standardization, the centring constants) reduced with ``pmean``.
 """
 

@@ -4,7 +4,7 @@ Each stencil op needs a rim of neighbour data around its local block: the
 kernel radius for disk/valley convolutions, ``int(4*sigma+0.5)`` for the
 Gaussian, one row for np.gradient, the full ray length ``radius_pxl`` for Sx
 (SURVEY.md §2b N2). The rim moves with ``jax.lax.ppermute`` shifts along each
-mesh axis — nearest-neighbour traffic that XLA maps onto ICI links — with
+mesh axis — nearest-neighbour traffic that XLA hands to NCCL over NVLink — with
 multi-hop shifts when the halo is wider than a block (Sx at coarse meshes).
 
 Boundary fills at the true domain edge reproduce the single-chip semantics:

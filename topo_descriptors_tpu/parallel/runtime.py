@@ -1,20 +1,22 @@
-"""Multi-host SPMD runtime initialization.
+"""Multi-process SPMD runtime initialization.
 
 The reference is single-process (SURVEY.md §2b: no comm backend at all).
-Scaling a DEM across a multi-host pod slice needs one JAX process per host
-participating in a single SPMD program: ``jax.distributed.initialize``
-wires the hosts together, after which ``make_mesh()`` sees every chip in
-the slice and the ShardedOps programs run unchanged — XLA routes the halo
-``ppermute``s over ICI within a slice and DCN across hosts.
+One process drives every card of a host: ``make_mesh()`` sees all local
+GPUs and the ShardedOps programs move halos over NVLink, so a single-host
+run needs no initialization at all. Only when several processes share one
+SPMD program (one per host, or one per card) does ``jax.distributed``
+have to wire them together, and nothing on a GPU machine tells JAX of the
+cluster: every process passes the coordinator address, the process count
+and its own id.
 
-Typical launch (one command per host, e.g. under a scheduler)::
+Typical launch (one command per process)::
 
     from topo_descriptors_tpu.parallel import runtime, make_mesh, ShardedOps
 
-    runtime.initialize()              # env-driven (TPU pods auto-detect)
-    mesh = make_mesh()                # all chips across all hosts
+    runtime.initialize("host0:12345", num_processes=2, process_id=rank)
+    mesh = make_mesh()                # all cards across all processes
     sops = ShardedOps(mesh)
-    dem = runtime.host_local_to_global(mesh, local_block)  # per-host shard
+    dem = runtime.host_local_to_global(mesh, local_block)  # per-process shard
 """
 
 from __future__ import annotations
@@ -35,29 +37,20 @@ def initialize(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
 ) -> None:
-    """Initialize the multi-host JAX runtime (idempotent).
+    """Initialize the multi-process JAX runtime (idempotent).
 
-    On TPU pods all three arguments auto-detect from the environment; on
-    other platforms pass them explicitly. Safe to call in single-process
-    runs — it becomes a no-op when there is nothing to coordinate.
+    With no coordinator (or a single process) there is nothing to
+    coordinate and ``jax.distributed`` is not called at all; otherwise all
+    three arguments are required.
     """
     global _initialized
-    if _initialized:
+    if _initialized or coordinator_address is None or num_processes in (None, 1):
         return
-    if num_processes is None and coordinator_address is None:
-        # single-process (or TPU auto-detection) path
-        try:
-            jax.distributed.initialize()
-        except Exception as exc:  # single-process envs raise; that's fine
-            logger.debug(f"jax.distributed.initialize skipped: {exc}")
-            _initialized = True
-            return
-    else:
-        jax.distributed.initialize(
-            coordinator_address=coordinator_address,
-            num_processes=num_processes,
-            process_id=process_id,
-        )
+    jax.distributed.initialize(
+        coordinator_address=coordinator_address,
+        num_processes=num_processes,
+        process_id=process_id,
+    )
     _initialized = True
     logger.info(
         f"distributed runtime: process {jax.process_index()}/"

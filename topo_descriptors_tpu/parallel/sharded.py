@@ -29,10 +29,7 @@ from topo_descriptors_tpu.kernels.disk import circular_kernel
 from topo_descriptors_tpu.kernels.gaussian import gaussian_kernel1d, gaussian_radius
 from topo_descriptors_tpu.kernels.sobel import sobel_kernel
 from topo_descriptors_tpu.ops import conv as C
-from topo_descriptors_tpu.ops.valley_ridge import (
-    _flat_axis_combine,
-    prepare_valley_bank,
-)
+from topo_descriptors_tpu.ops.valley_ridge import prepare_valley_bank
 from topo_descriptors_tpu.parallel.halo import (
     exchange_halo,
     global_index,
@@ -559,6 +556,25 @@ class ShardedOps:
         )(x, xr_s, yr_s)
 
     # ------------------------------------------------------------------
+    def _standardized(self, block, sigma, valid_shape):
+        """Pre-smooth, then standardize with global statistics (reference
+        topo.py:427-429) as pmean/psum collectives. With ``valid_shape``
+        the statistics cover the true domain only and pad pixels are zeroed
+        after standardizing — a zero pixel contributes nothing to the
+        convolution, exactly like the single-device zero boundary."""
+        if sigma:
+            block = self._local_gaussian(block, sigma, valid=valid_shape)
+        if valid_shape is None:
+            mean = _global_mean(block)
+            var = _global_mean((block - mean) ** 2)
+            return (block - mean) / jnp.sqrt(var)
+        vh, vw = valid_shape
+        mask, _, _ = self._valid_mask(block.shape, valid_shape, block.dtype)
+        cnt = float(vh * vw)
+        mean = jax.lax.psum(jnp.sum(block * mask), (GY, GX)) / cnt
+        var = jax.lax.psum(jnp.sum((block - mean) ** 2 * mask), (GY, GX)) / cnt
+        return (block - mean) / jnp.sqrt(var) * mask
+
     def valley_ridge(
         self,
         x: jax.Array,
@@ -568,61 +584,52 @@ class ShardedOps:
         sigma: Optional[float] = None,
         valid_shape: Optional[Tuple[int, int]] = None,
     ):
-        """Sharded valley/ridge index (reference topo.py:389-453). The global
-        standardization becomes a pmean collective; the angle loop stays a
-        device-side scan over the precomputed rotated bank.
+        """Sharded valley/ridge index (reference topo.py:389-453) over the
+        precomputed rotated bank. The global standardization becomes a
+        pmean collective; each device convolves its halo-extended block
+        with the flat-folded bank by a VALID FFT convolution (the block's
+        transform hoisted out of the scan over angles), keeping the
+        earliest angle on ties. The FFT's float32 roundoff grows with the
+        log of the block's width, where the matmul-DFT engine's grows with
+        its square root: at 4096-wide blocks the latter misses the oracle's
+        per-pixel tolerance.
 
-        ``valid_shape`` enables ragged grids padded with ``pad_to_mesh``: the
-        standardization statistics become masked ``psum`` collectives over
-        the true domain only, and pad pixels are zeroed *after* standardizing
-        — a zero pixel contributes nothing to the convolution, exactly like
-        the single-chip zero boundary — so the cropped result is bit-
-        comparable to the unpadded single-chip op. A pre-smooth sigma
-        reflects at the *true* edge (:meth:`_local_gaussian` with valid)."""
+        ``valid_shape`` enables ragged grids padded with ``pad_to_mesh``
+        (see :meth:`_standardized`), so the cropped result is comparable to
+        the unpadded single-device op. A pre-smooth sigma reflects at the
+        *true* edge (:meth:`_local_gaussian` with valid)."""
+        from topo_descriptors_tpu.ops.valley_ridge import _fold_flats_np
+
         self._check(x.shape)
-        bank = prepare_valley_bank(size, mode, tuple(flat_list))
-        a_angles, n_flats, ky, kx = bank.shape
+        bank = _fold_flats_np(prepare_valley_bank(size, mode, tuple(flat_list)))
+        _, n_flats, ky, kx = bank.shape
         (ply, phy), (plx, phx) = C._same_pads(ky), C._same_pads(kx)
-        h, w = x.shape
-        lh, lw = h // self.gy, w // self.gx
+        key = ("valley", size, mode, tuple(flat_list), sigma, x.shape,
+               valid_shape)
+        fn = self._cache.get(key)
+        if fn is None:
 
-        def build():
-            bank_j = jnp.asarray(bank)
-            angles_j = jnp.arange(a_angles, dtype=jnp.float32)
-
-            def local(block):
-                if sigma:
-                    block = self._local_gaussian(block, sigma, valid=valid_shape)
-                if valid_shape is None:
-                    mean = _global_mean(block)
-                    var = _global_mean((block - mean) ** 2)
-                    block = (block - mean) / jnp.sqrt(var)
-                else:
-                    vh, vw = valid_shape
-                    giy = global_index(0, GY, lh, block.shape)
-                    gix = global_index(1, GX, lw, block.shape)
-                    mask = ((giy < vh) & (gix < vw)).astype(block.dtype)
-                    cnt = float(vh * vw)
-                    mean = jax.lax.psum(jnp.sum(block * mask), (GY, GX)) / cnt
-                    var = (
-                        jax.lax.psum(
-                            jnp.sum((block - mean) ** 2 * mask), (GY, GX)
-                        )
-                        / cnt
-                    )
-                    block = (block - mean) / jnp.sqrt(var) * mask
+            def local(block, bank_k):
+                block = self._standardized(block, sigma, valid_shape)
                 padded = exchange_halo(
                     block, (ply, phy), (plx, phx), (self.gy, self.gx), "zero"
                 )
+                # a transform at least as long as the extended block: the
+                # circular wrap reaches only the first k-1 outputs, which
+                # the VALID crop drops
+                fh, fw = C._fft_shape(padded.shape[0]), C._fft_shape(padded.shape[1])
+                f_block = jnp.fft.rfft2(padded, s=(fh, fw))
+                lh, lw = block.shape
 
                 def step(carry, inputs):
                     norm, direction = carry
                     kernels, angle = inputs
-                    convs = C.conv2d_bank_rowchan(
-                        padded, kernels, padding="valid",
-                        precision=jax.lax.Precision.HIGH,
+                    fk = jnp.fft.rfft2(kernels, s=(fh, fw))
+                    full = jnp.fft.irfft2(f_block[None] * fk, s=(fh, fw))
+                    convs = jax.lax.slice(
+                        full, (0, ky - 1, kx - 1), (n_flats, ky - 1 + lh, kx - 1 + lw)
                     )
-                    combined = jnp.max(_flat_axis_combine(convs), axis=0)
+                    combined = jnp.max(convs, axis=0)
                     greater = combined > norm
                     return (
                         jnp.where(greater, combined, norm),
@@ -633,20 +640,20 @@ class ShardedOps:
                     _varying(jnp.full(block.shape, -jnp.inf, block.dtype)),
                     _varying(jnp.zeros(block.shape, block.dtype)),
                 )
+                angles = jnp.arange(bank_k.shape[0], dtype=block.dtype)
                 (norm, direction), _ = jax.lax.scan(
-                    step, init, (bank_j, angles_j)
+                    step, init, (bank_k, angles)
                 )
                 return jnp.clip(norm, 0.0, None), direction
 
-            return local
-
-        return self._wrap(
-            ("valley", size, mode, tuple(flat_list), sigma, x.shape,
-             valid_shape),
-            build,
-            1,
-            n_out=2,
-        )(x)
+            fn = jax.jit(shard_map(
+                local,
+                mesh=self.mesh,
+                in_specs=(SPATIAL, P()),
+                out_specs=(SPATIAL, SPATIAL),
+            ))
+            self._cache[key] = fn
+        return fn(x, bank)
 
     # ------------------------------------------------------------------
     def valley_ridge_streamed(
@@ -661,8 +668,7 @@ class ShardedOps:
     ):
         """Sharded valley/ridge for bank sizes past the memory budget — the
         mesh-resident counterpart of
-        :func:`~topo_descriptors_tpu.ops.valley_ridge.valley_ridge_streamed`
-        (round-3's driver fell back to a single chip here, VERDICT r3 #2).
+        :func:`~topo_descriptors_tpu.ops.valley_ridge.valley_ridge_streamed`.
 
         Per device: global standardization via psum collectives
         (reference topo.py:429), ONE multi-hop halo exchange at the rotated
@@ -753,7 +759,10 @@ class ShardedOps:
     def _build_valley_streamed(self, sigma, valid_shape, n_flats, size,
                                kmax, pads_y, pads_x, block_shape,
                                q_batch: int = 4):
-        from topo_descriptors_tpu.ops.dft_conv import conv_bank_mats
+        from topo_descriptors_tpu.ops.dft_conv import (
+            _field_spectrum_jit,
+            conv_bank_mats,
+        )
         from topo_descriptors_tpu.ops.spline_rotate import (
             build_rotation_table,
             canvas_variants,
@@ -764,43 +773,14 @@ class ShardedOps:
 
         (ply, phy), (plx, phx) = pads_y, pads_x
         lh, lw = block_shape
-        PH = jax.lax.Precision.HIGH
 
         def local(block, base_k, qp, sa, sv, cxf, sxf, cyf, syf, cyi, syi,
                   cxi, sxi, fxc, fxs, fyc, fys):
-            if sigma:
-                block = self._local_gaussian(block, sigma, valid=valid_shape)
-            if valid_shape is None:
-                mean = _global_mean(block)
-                var = _global_mean((block - mean) ** 2)
-                block = (block - mean) / jnp.sqrt(var)
-            else:
-                vh, vw = valid_shape
-                mask, _, _ = self._valid_mask(
-                    block.shape, valid_shape, block.dtype
-                )
-                cnt = float(vh * vw)
-                mean = jax.lax.psum(jnp.sum(block * mask), (GY, GX)) / cnt
-                var = (
-                    jax.lax.psum(
-                        jnp.sum((block - mean) ** 2 * mask), (GY, GX)
-                    )
-                    / cnt
-                )
-                block = (block - mean) / jnp.sqrt(var) * mask
+            block = self._standardized(block, sigma, valid_shape)
             padded = exchange_halo(
                 block, (ply, phy), (plx, phx), (self.gy, self.gx), "zero"
             )
-            # field spectrum of the halo-extended block (matmul rDFT —
-            # exact fh/fw are not 5-smooth)
-            s1r = jnp.dot(padded, fxc, precision=PH)
-            s1i = jnp.dot(padded, fxs, precision=PH)
-            fdr = jnp.dot(fyc, s1r, precision=PH) - jnp.dot(
-                fys, s1i, precision=PH
-            )
-            fdi = jnp.dot(fyc, s1i, precision=PH) + jnp.dot(
-                fys, s1r, precision=PH
-            )
+            fdr, fdi = _field_spectrum_jit(padded, fxc, fxs, fyc, fys)
             table = build_rotation_table(prefilter2d_o2(base_k))
 
             def body(carry, xs):

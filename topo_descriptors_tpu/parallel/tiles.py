@@ -1,7 +1,7 @@
 """Out-of-core tiled execution: stream grids larger than device memory
 through one chip in halo-overlapped row bands.
 
-This is the TPU-native replacement for the reference's dask ``map_overlap``
+This is the replacement for the reference's dask ``map_overlap``
 path (topo.py:177-178, its only out-of-core story, reachable only from tpi
 and only with a dask-backed array). Here every descriptor op runs banded:
 
@@ -97,12 +97,11 @@ class TiledRunner:
         host_result)`` delivers results in band order (NetCDF band write or
         stitch). With ``self.pipeline`` (default), band k+1's host read +
         chunked H2D runs on a prefetch thread and band k-1's emit on a
-        writer thread while band k computes and fetches: the relay overlaps
-        H2D and D2H RPCs (measured 1.5x combined throughput, round 5) and
-        disk I/O overlaps both. Queues are bounded at ONE band each, so
-        peak host memory gains at most two extra bands. h5py calls from the
-        prefetch/writer threads are safe (h5py serializes on its API lock);
-        JAX device_put/execute are thread-safe.
+        writer thread while band k computes and fetches, so disk I/O and
+        host<->device transfers overlap the compute. Queues are bounded at
+        ONE band each, so peak host memory gains at most two extra bands.
+        The band writers' memory-map stores and JAX device_put/execute are
+        safe from the prefetch/writer threads.
         """
         metas = list(self._bands(dem.shape[0], *halo))
         if not self.pipeline or len(metas) <= 1:

@@ -4,7 +4,7 @@ Each driver mirrors its reference wrapper (topo.py:16,88,216,317,534,715):
 validate the DEM, convert scales to odd pixel counts, loop over scales,
 reassign the original NaNs, optionally crop, and write one NetCDF per
 descriptor with the reference's exact naming scheme. The numerical core runs
-as a jit-compiled TPU op (ops/) or, when a :class:`ShardedOps` is supplied,
+as a jit-compiled op (ops/) or, when a :class:`ShardedOps` is supplied,
 as a multi-device shard_map program.
 """
 
@@ -18,7 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from topo_descriptors_tpu import geo, ops
-from topo_descriptors_tpu.config import CFG
+from topo_descriptors_tpu.config import CFG, ensure_compilation_cache
 from topo_descriptors_tpu.grid import Raster, check_dem
 from topo_descriptors_tpu.io.netcdf import to_netcdf
 from topo_descriptors_tpu.kernels.sx_geometry import sx_offsets
@@ -28,9 +28,11 @@ logger = logging.getLogger(__name__)
 
 
 def _as_list(value, length=None):
-    if not hasattr(value, "__iter__"):
-        value = [value] if length is None else [value] * length
-    return list(value)
+    """A scalar or a one-element list broadcasts to ``length`` entries."""
+    value = list(value) if hasattr(value, "__iter__") else [value]
+    if length is not None and len(value) == 1:
+        value = value * length
+    return value
 
 
 def _apply_nans(array: np.ndarray, ind_nans) -> np.ndarray:
@@ -62,8 +64,10 @@ def _compute_backend(dem_val, backend, ragged_fill=None):
     the mesh evenly, in which case the array is padded bottom/right with
     ``ragged_fill`` (``pad_to_mesh``) and ``to_host`` crops back. A driver
     whose op can't run exactly on a padded grid passes ``ragged_fill=None``
-    and gets an actionable error instead.
+    and gets an actionable error instead. Every driver comes through here
+    before it compiles, so this is where the compile cache is placed.
     """
+    ensure_compilation_cache()
     dem_val = np.asarray(dem_val, dtype=CFG.compute_dtype)
     shape = dem_val.shape
     if backend is None:
@@ -499,6 +503,7 @@ def sx(
     """
     if not isinstance(dem_ds, Raster):
         raise TypeError("Argument 'dem_ds' must be a Raster.")
+    ensure_compilation_cache()  # the one-device route skips _compute_backend
     _, res_meters = geo.scale_to_pixel(radius, dem_ds)
     dx = float(res_meters["x"].mean())
     dy = float(res_meters["y"].mean())
@@ -546,6 +551,7 @@ def compute_sx_sweep(
     from topo_descriptors_tpu.kernels.sx_geometry import sx_sweep_offsets
 
     check_dem(dem_ds)
+    ensure_compilation_cache()  # the one-device route skips _compute_backend
     azimuths = _as_list(azimuths)
     names = [_sx_name(radius, a) for a in azimuths]
     if skip_existing and all(_existing(n, outdir) for n in names):

@@ -7,13 +7,13 @@ topo.py:177-178, which still ingests the whole array through xarray). Every
 driver here composes three bounded-memory pieces:
 
 * :class:`~topo_descriptors_tpu.io.windowed.DemWindowReader` — windowed
-  ingest (GeoTIFF strips/tiles or HDF5 hyperslabs) with the reference's
+  ingest (GeoTIFF strips/tiles or NetCDF row windows) with the reference's
   float32 / min-elevation-mask / nearest-in-x-fill semantics applied per
   window;
 * :class:`~topo_descriptors_tpu.parallel.tiles.TiledRunner` — banded
   halo-overlapped device execution;
-* :class:`~topo_descriptors_tpu.io.netcdf.RasterBandWriter` — chunked
-  NetCDF4 output appended band by band.
+* :class:`~topo_descriptors_tpu.io.netcdf.RasterBandWriter` — NetCDF
+  output written band by band.
 
 Peak host memory is one halo-extended band (plus coordinate vectors),
 independent of grid height. Outputs keep the reference's per-
@@ -35,7 +35,7 @@ from typing import Optional, Union
 import numpy as np
 
 from topo_descriptors_tpu import geo
-from topo_descriptors_tpu.config import CFG
+from topo_descriptors_tpu.config import CFG, ensure_compilation_cache
 from topo_descriptors_tpu.grid import check_dem
 from topo_descriptors_tpu.io.netcdf import RasterBandWriter
 from topo_descriptors_tpu.io.windowed import DemWindowReader
@@ -57,7 +57,10 @@ logger = logging.getLogger(__name__)
 
 
 def open_dem(dem: Union[str, Path, DemWindowReader], fill: bool = True):
-    """Coerce a path into a :class:`DemWindowReader` (passthrough if lazy)."""
+    """Coerce a path into a :class:`DemWindowReader` (passthrough if lazy).
+    Every driver opens its DEM here before it compiles, so this is where
+    the compile cache is placed."""
+    ensure_compilation_cache()
     if isinstance(dem, DemWindowReader):
         return dem
     return DemWindowReader(dem, fill=fill)
@@ -360,14 +363,14 @@ def compute_tpi_std_sharded(
 ):
     """Windowed ingest -> multi-device mesh -> banded NetCDF output.
 
-    The missing composition from round 2 (VERDICT item 4): each process
+    Each process
     reads only its devices' blocks from disk
     (:func:`~topo_descriptors_tpu.parallel.runtime.ingest_sharded` — peak
     host memory one block), the whole scale battery runs as fused
     shard_map programs on the mesh, and outputs stream back to NetCDF in
-    row bands. This is the full-Alps >= 2-host shape (BASELINE.md): under
-    ``runtime.initialize()`` the same code runs one process per host with
-    XLA routing halos over ICI/DCN.
+    row bands. This is the full-Alps sharded shape (BASELINE.md); one
+    process drives all the cards of a host, and XLA moves the halos over
+    NVLink.
     """
     from topo_descriptors_tpu.parallel.runtime import ingest_sharded
 

@@ -1,10 +1,10 @@
 """Profiling and roofline observability.
 
 The reference's only instrumentation is the @timer log line
-(helpers.py:157-168). Production TPU runs need more: device traces for
-xprof, per-op throughput, and a roofline model saying how far an op sits
-from the hardware ceiling. All host-side and optional — nothing here
-touches the compute path.
+(helpers.py:157-168). Production runs need more: device traces, per-op
+throughput, and a roofline model saying how far an op sits from the
+hardware ceiling. All host-side and optional — nothing here touches the
+compute path.
 """
 
 from __future__ import annotations
@@ -12,9 +12,8 @@ from __future__ import annotations
 import contextlib
 import logging
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict
 
-import numpy as np
 
 from topo_descriptors_tpu.utils.timing import Timings
 
@@ -52,98 +51,44 @@ def throughput_report(pixels: int) -> Dict[str, float]:
 # --- roofline model ----------------------------------------------------------
 
 
-@dataclass
+@dataclass(frozen=True)
 class Roofline:
-    """Per-chip hardware ceilings (defaults: TPU v5e)."""
+    """Published per-card peaks (dense rates, no sparsity)."""
 
-    hbm_gbps: float = 819.0
-    vpu_tflops: float = 3.9  # f32 elementwise
-    mxu_tflops_f32: float = 49.0  # ~bf16/8 for HIGHEST-precision passes
-    fft_tflops: float = 10.0  # measured practical FFT rate
-    # sustained MAC rate of the partial-DFT matmul conv engine at HIGH
-    # (bf16x3) precision, measured on the valley kernel mix (dft_conv.py)
-    mm_tmacs: float = 18.5
-    # sustained 27-float-row gather rate of the packed rotation table
-    # (spline_rotate.build_rotation_table; measured 889K rows / 12.4 ms)
-    gather_rows_gps: float = 0.072
+    hbm_gbps: float  # device-memory bandwidth
+    fp32_tflops: float  # float32 outside the tensor cores
+    tf32_tflops: float  # TF32 tensor cores
+    source: str
 
-    def sx_light_speed_ms(
-        self, pixels: int, n_offsets: int, n_groups: Optional[int] = None
-    ) -> float:
-        """Sx lower bound, VPU-bound.
-
-        The naive shifted-max loop costs 3 ops per (pixel, ray): subtract,
-        multiply, fmax. The distance-grouped Pallas kernel
-        (ops/pallas/sx_block.py) hoists subtract/multiply out of each
-        equal-distance group, leaving one fmax per ray inside the group
-        (``K - G`` tree-fmax ops) plus 3 ops per group — ``K + 2G`` ops per
-        pixel total. Pass ``n_groups`` (``len(dist_table)``) to get the
-        grouped ceiling; omit it for the ungrouped 3K model (the XLA scan)."""
-        if n_groups is None:
-            flops = pixels * n_offsets * 3.0
-        else:
-            flops = pixels * (n_offsets + 2.0 * n_groups)
-        return flops / (self.vpu_tflops * 1e12) * 1e3
-
-    def valley_ridge_light_speed_ms(
-        self,
-        h: int,
-        w: int,
-        size: int,
-        n_flats: int = 3,
-        n_angles: int = 180,
-        method: str = "direct",
-    ) -> float:
-        """Valley/ridge lower bound for one scale.
-
-        ``mm_bank`` / ``mm_stream`` / ``mm_cached`` — the round-4
-        partial-DFT matmul engine (ops/dft_conv.py) on the precomputed host
-        bank / the on-device quadrant rotation path / the rotation path
-        with a warm device canvas cache (round 5,
-        ops/valley_ridge._CANVAS_DEV_CACHE — rotation amortized away):
-        conv MACs per kernel at the aliased transform lengths charged at
-        the measured sustained matmul rate; ``mm_stream`` adds the
-        rotation-table gather floor (one 27-float row per canvas pixel,
-        ~46 rotations per 180 angles).
-        ``direct`` — the row-channel MXU mapping (conv2d_bank_rowchan): each
-        output pixel of each (angle, flat) plane contracts KY*KX taps, 2
-        flops each, on the MXU at f32-equivalent rate. ``fft`` — the
-        legacy streamed path: per angle, F kernel-canvas rfft2s + the
-        pointwise product + one irfft2 batch at the linear-conv shape (the
-        field transform is hoisted and amortizes to ~0 across 180 angles)."""
-        from topo_descriptors_tpu.kernels.valley import rotated_extent
-
-        ky, kx = rotated_extent(size, np.arange(n_angles))
-        if method in ("mm_bank", "mm_stream", "mm_cached"):
-            sy, sx = (ky - 1) // 2, (kx - 1) // 2
-            fh = max(h + ky - 1 - sy, sy + h)
-            fw = max(w + kx - 1 - sx, sx + w)
-            nb = fw // 2 + 1
-            macs = (
-                ky * kx * nb * 2
-                + fh * ky * nb * 4
-                + h * fh * nb * 4
-                + h * nb * w * 2
-            )
-            ms = n_angles * n_flats * macs / (self.mm_tmacs * 1e12) * 1e3
-            if method == "mm_stream":
-                q = min(n_angles, 46)  # quadrant rotations (46 per 180)
-                rows = q * float(max(ky, kx)) ** 2
-                ms += rows / (self.gather_rows_gps * 1e9) * 1e3
-            return ms
-        if method == "direct":
-            flops = 2.0 * h * w * ky * kx * n_flats * n_angles
-            return flops / (self.mxu_tflops_f32 * 1e12) * 1e3
-        fh = 1 << int(np.ceil(np.log2(h + ky - 1)))
-        fw = 1 << int(np.ceil(np.log2(w + kx - 1)))
-        n = fh * fw
-        per_angle = (2 * n_flats + 0.5) * 5.0 * n * np.log2(max(n, 2))
-        return n_angles * per_angle / (self.fft_tflops * 1e12) * 1e3
-
-    def fft_conv_light_speed_ms(self, fft_pixels: int, n_transforms: int) -> float:
-        """FFT-conv lower bound: 5 N log2 N real flops per transform."""
-        flops = n_transforms * 5.0 * fft_pixels * np.log2(max(fft_pixels, 2))
-        return flops / (self.fft_tflops * 1e12) * 1e3
+    def sx_light_speed_ms(self, pixels: int, n_offsets: int) -> float:
+        """Sx compute floor: subtract, multiply and fmax per (pixel, ray)
+        at the float32 rate."""
+        return pixels * n_offsets * 3.0 / (self.fp32_tflops * 1e12) * 1e3
 
     def hbm_light_speed_ms(self, bytes_moved: int) -> float:
         return bytes_moved / (self.hbm_gbps * 1e9) * 1e3
+
+
+# Keyed by ``jax.devices()[0].device_kind``. A card not listed here is an
+# error, never a default: add its data-sheet peaks first.
+PEAKS: Dict[str, Roofline] = {
+    "NVIDIA H100 80GB HBM3": Roofline(
+        hbm_gbps=3350.0, fp32_tflops=67.0, tf32_tflops=495.0,
+        source="NVIDIA H100 Tensor Core GPU data sheet, SXM5",
+    ),
+    "NVIDIA H100 PCIe": Roofline(
+        hbm_gbps=2000.0, fp32_tflops=51.0, tf32_tflops=378.0,
+        source="NVIDIA H100 Tensor Core GPU data sheet, PCIe",
+    ),
+}
+
+
+def roofline_for(device_kind: str) -> Roofline:
+    """The peak table entry of one card kind; unknown kinds raise."""
+    try:
+        return PEAKS[device_kind]
+    except KeyError:
+        raise KeyError(
+            f"no peak-table entry for device kind {device_kind!r}; add its "
+            "data-sheet peaks to utils.profiling.PEAKS"
+        ) from None
